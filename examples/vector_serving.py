@@ -1,8 +1,8 @@
 """Standalone vector-index usage: exact, IVF, HNSW, and the mesh.
 
 Runs on the CPU backend with 8 simulated devices by default so the mesh
-path works anywhere; on a TPU host, drop the env pinning to run on
-chips.
+path works anywhere; on a GPU host, drop the env pinning to run on the
+cards.
 
 Usage:  python examples/vector_serving.py
 """

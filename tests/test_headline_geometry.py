@@ -1,25 +1,14 @@
-"""Pin the 1M ivf_f32 headline operating point (round-4 verdict item #1).
+"""Pin the 1M ivf_f32 operating point: geometry and probe program.
 
-The round-3 artifact regressed 194k -> 109k QPS because approx_max_k
-was fused into the cell probe at the 1M geometry (C=16384), where the
-exact top_k is faster; an on-chip geometry sweep (scripts/
-exp_geometry.py, 2026-08-19) measured the probe program at:
-
-    C=16384 L=128 nprobe=8 : 238,825 QPS   <- headline default
-    C=32768 L=128 nprobe=8 : 118,684 QPS   (r2's recorded geometry)
-    C= 8192 L=256 nprobe=4 : 235,211 QPS
-    C= 8192 L=128 nprobe=8 : 206,663 QPS
-
-These tests pin (a) the default geometry the bench build picks at 1M
-and (b) the probe program shape — two-level EXACT cell selection
-(ops/topk.py topk_smallest_wide), never ApproxTopK — so the headline
-can't silently halve again via either path. (The real 1M build grows C
-via the split cascade, scripts/exp_real_gap.py; with the two-level
-selection the measured headline moved 116k -> 153.6k, and the
-big-block n//128 sizing took it to 181.8k @ recall 0.9703 — full
-progression in docs/PERF.md.) QPS itself is asserted by the bench
-artifact; what's CPU-checkable is that the program and geometry stay
-the ones that were measured.
+An approximate top-k (approx_max_k) fused into the cell probe once cost
+the 1M cell much of its throughput, and the geometry (cells x lanes) the
+build picks decides how many bytes each probe gathers. These tests pin
+(a) the default geometry the build picks at 1M and (b) the probe program
+shape — two-level EXACT cell selection (ops/topk.py topk_smallest_wide),
+never ApproxTopK. The real 1M build grows C via the split cascade.
+Throughput itself is measured on the GPU (chip_smoke.py, bench.py); what
+is CPU-checkable is that the program and geometry stay the ones that were
+measured. Which geometry is best on the H100 is open (ROADMAP debt 8).
 """
 
 import jax
@@ -50,8 +39,8 @@ def headline_geometry(n=1_000_000, sq8=False, dim=128):
 
 
 def test_default_1m_geometry_pinned():
-    """Round-4 on-chip study: big blocks for the f32 engine (176.5k QPS
-    at nprobe=5 vs 153.6k at the n//64 sizing), dense blocks for sq8."""
+    """Big blocks (n//128 cells) for the f32 engine at 1M, dense blocks
+    (n//64) for sq8 and for wide (384-d) rows."""
     assert headline_geometry(1_000_000) == (8192, 256)
     assert headline_geometry(1_000_000, sq8=True) == (16384, 128)
     assert headline_geometry(500_000, dim=384) == (8192, 128)
@@ -80,11 +69,10 @@ def _probe_hlo(c, l, nprobe=8, dim=8):
 
 
 def test_probe_never_lowers_approx_topk():
-    """The cell probe must stay EXACT at every C: fusing approx_max_k
-    at C=16384 was the r3 regression (109-114k QPS vs 238k exact), and
-    the two-level exact selection (ops/topk.py topk_smallest_wide) now
-    replaces the full-row sort everywhere — ApproxTopK must not lower
-    at the 1M headline geometry NOR at the 10M-class one."""
+    """The cell probe must stay EXACT at every C: the two-level exact
+    selection (ops/topk.py topk_smallest_wide) replaces the full-row
+    sort on wide rows — ApproxTopK must not lower at the 1M geometry
+    NOR at the 10M-class one."""
     for c in (16384, 32768):
         hlo = _probe_hlo(c, 8)
         assert "ApproxTopK" not in hlo and "approx_max_k" not in hlo, c

@@ -2,7 +2,7 @@
 
 Reference behavior contract: hnsw search semantics (search.rs:311-350)
 + stepping-stone filtered search (mod.rs:62-68,1176-1273); the layout is
-the TPU redesign described in models/hnsw_serve.py.
+the batched redesign described in models/hnsw_serve.py.
 """
 
 import numpy as np

@@ -1,8 +1,9 @@
 """Unit tests for distance/topk primitives — semantics must match the
 reference's scalar implementations (reference src/hnsw/distance.rs:55-97)."""
 
-import numpy as np
 import jax.numpy as jnp
+import numpy as np
+import pytest
 
 from turdb_tpu.ops.distance import (
     Metric,
@@ -99,8 +100,7 @@ def test_member_mask():
 def test_topk_smallest_wide_exact():
     """Two-level wide top-k is EXACT (values AND index consistency) vs
     the full sort, across shapes incl. ties, +inf rows, and non-pow2
-    widths — it replaces lax.top_k in the IVF cell probe where the full
-    sort was ~44% of the probe cost (scripts/exp_probe_parts.py)."""
+    widths — it replaces lax.top_k on the IVF cell probe's wide rows."""
     import numpy as np
 
     from turdb_tpu.ops.topk import topk_smallest_wide
@@ -116,3 +116,22 @@ def test_topk_smallest_wide_exact():
         assert np.allclose(np.asarray(v), ref, equal_nan=True)
         gat = np.take_along_axis(d, np.asarray(i), -1)
         assert np.allclose(gat, np.asarray(v), equal_nan=True)
+
+
+@pytest.mark.parametrize("width", [1280, 8192, 32768])
+def test_topk_smallest_matches_argsort(width):
+    """topk_smallest on both sides of its 2048-lane routing threshold
+    (single lax.top_k below, two-level selector above) equals a numpy
+    sort: same values, and ids that carry those values."""
+    rng = np.random.default_rng(width)
+    d = rng.standard_normal((6, width)).astype(np.float32)
+    d[1, ::2] = np.inf
+    ids = rng.permutation(width * 6).reshape(6, width).astype(np.int32)
+    k = 10
+    v, i = topk_smallest(jnp.asarray(d), jnp.asarray(ids), k)
+    order = np.argsort(d, axis=-1, kind="stable")[:, :k]
+    assert np.array_equal(np.asarray(v), np.take_along_axis(d, order, -1))
+    pos = {int(x): j for j, x in enumerate(ids.ravel())}
+    for r in range(6):
+        got = [d.ravel()[pos[int(x)]] for x in np.asarray(i)[r]]
+        assert np.array_equal(got, np.asarray(v)[r])

@@ -154,7 +154,7 @@ def test_gid_stability_across_growth(data):
 
 def test_multihost_two_level_merge(data):
     """(host, data, db) mesh: store sharded over host x db, search merges
-    db on 'ICI' then host on 'DCN' with only [B,k] crossing the host
+    db inside a node, then host across nodes, with only [B,k] crossing the host
     axis. Results must match the exact oracle like the flat mesh does."""
     from turdb_tpu.parallel.mesh import make_multihost_mesh
     from turdb_tpu.parallel.sharded_ivf import ShardedIvfIndex

@@ -246,7 +246,8 @@ class Repl:
                 pass
         except ImportError:
             readline = None
-        self.write("turdb-tpu — TPU-native data engine. Type .help for help.")
+        self.write("turdb-tpu — SQL database with device vector search. "
+                   "Type .help for help.")
         while True:
             try:
                 line = input(self.prompt())
@@ -284,7 +285,9 @@ def main(argv=None):
         ap.error("the following arguments are required: database")
 
     from turdb_tpu.database.api import Database, connect
+    from turdb_tpu.utils.compile_cache import use_compile_cache
 
+    use_compile_cache()
     if args.create:
         if os.path.exists(args.database):
             print(f"error: {args.database} already exists", file=sys.stderr)

@@ -1,20 +1,12 @@
 """Centralized constants with dependency assertions.
 
 Mirrors the role of reference src/config/constants.rs:95-182 (compile-time
-constants + interdependency asserts), re-derived for a TPU-native engine:
-where the reference's constants describe 16KB mmap pages and WAL framing,
-ours additionally describe HBM tiling (MXU/VPU lane widths) and mesh axes.
+constants + interdependency asserts): where the reference's constants
+describe 16KB mmap pages and WAL framing, ours additionally describe the
+vector-graph geometry and the device-mesh axes.
 """
 
 from __future__ import annotations
-
-# ---------------------------------------------------------------------------
-# TPU hardware shape constants (see /opt/skills/guides/pallas_guide.md)
-# ---------------------------------------------------------------------------
-LANE = 128          # last-dim tile width (VPU lane / MXU edge)
-SUBLANE_F32 = 8     # second-to-last min tile for f32
-SUBLANE_BF16 = 16
-SUBLANE_I8 = 32
 
 # ---------------------------------------------------------------------------
 # Vector index defaults — same graph shape as the reference
@@ -71,13 +63,12 @@ MEMORY_BUDGET_MIN = 4 * 1024 * 1024
 # ---------------------------------------------------------------------------
 MESH_AXIS_DB = "db"      # vector-store shard axis (the "tensor" axis)
 MESH_AXIS_DATA = "data"  # query-batch data-parallel axis
-MESH_AXIS_HOST = "host"  # cross-host (DCN) shard axis; outermost so the
-#                          db-axis merge rides ICI and only [B,k] buffers
-#                          cross DCN (two-level merge, SURVEY §2.9)
+MESH_AXIS_HOST = "host"  # cross-host shard axis; outermost so the db-axis
+#                          merge stays inside a node and only [B,k] buffers
+#                          cross the inter-node network (two-level merge)
 
 # Dependency assertions (spirit of reference constants.rs `const _: ()`).
 assert HNSW_M0 == 2 * HNSW_M, "level-0 degree must be 2*M (graph invariant)"
-assert HNSW_M0 % SUBLANE_F32 == 0, "adjacency width must tile on sublanes"
 assert FILE_HEADER_SIZE % 8 == 0
 assert WAL_SEGMENT_SIZE % WAL_FRAME_HEADER_SIZE == 0
 assert len(MAGIC_META) == 16 and len(MAGIC_HNSW) == 16

@@ -3,7 +3,7 @@
 Replaces the reference's on-disk B-tree secondary indexes (reference
 src/btree/, SURVEY.md §2.2) with host-side sorted key arrays — the
 "sorted-array index amenable to vectorized search" called for by the
-build plan (§2.2 TPU-native equivalent): a sorted run of
+build plan (§2.2 device-era equivalent): a sorted run of
 (order-preserving key bytes, rowid) plus an unsorted delta buffer merged
 on threshold. Lookups binary-search the run (numpy searchsorted on object
 arrays / bisect) and linear-scan the delta. MVCC note: entries may
@@ -354,7 +354,7 @@ class IvfTableIndex(_SlotMap):
     """IVF-Flat index over one VECTOR column — same maintenance surface as
     HnswTableIndex (append-only; MVCC via the allowed mask) but backed by
     the clustered block-contiguous engine (models/ivf.py), which is the
-    TPU throughput path."""
+    throughput path."""
 
     using = "IVF"
 

@@ -7,7 +7,7 @@ src/sql/planner/physical.rs:229) — and the ground-truth oracle for HNSW
 recall tests (replacing the reference's live-Qdrant harness,
 tests/hnsw_qdrant_comparison.rs).
 
-Design: one [B, d] x [d, N] MXU matmul per chunk of the store, fused with
+Design: one [B, d] x [d, N] matmul per chunk of the store, fused with
 the L2 epilogue, then a running masked top-k merge over chunks via
 lax.scan. Static shapes throughout; N is padded to the chunk size with
 +inf sentinel rows.

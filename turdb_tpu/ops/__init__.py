@@ -1,9 +1,9 @@
 """Device compute primitives: distance kernels, top-k, quantization.
 
-TPU-native replacements for the reference's hand-written SIMD
-(reference src/hnsw/distance.rs, src/btree/simd_scan.rs): instead of
-AVX2/NEON 8-wide loops with runtime dispatch, distances are MXU matmuls
-and VPU elementwise ops emitted by XLA/Pallas.
+Replacements for the reference's hand-written SIMD (reference
+src/hnsw/distance.rs, src/btree/simd_scan.rs): instead of AVX2/NEON
+8-wide loops with runtime dispatch, distances are matmuls and fused
+elementwise ops that XLA compiles for the device.
 """
 
 from turdb_tpu.ops.distance import (  # noqa: F401

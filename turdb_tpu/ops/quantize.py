@@ -2,8 +2,8 @@
 
 Counterpart of reference src/hnsw/quantization.rs: per-vector min +
 scale=(max-min)/255 with a u8 payload (:7-33), encode/decode (:89-147),
-and distance over quantized codes. On TPU the u8 codes halve-again HBM
-traffic vs bf16 and can feed the MXU after a cheap dequant fuse; the
+and distance over quantized codes. The u8 codes halve-again memory
+traffic vs bf16 and feed a matmul after a cheap fused dequant; the
 asymmetric path (f32 query vs SQ8 store) is the accuracy-preserving
 default, mirroring the reference's SQ8 asymmetric kernel (:44-53).
 
@@ -39,6 +39,17 @@ def sq8_decode(codes: jax.Array, mins: jax.Array, scales: jax.Array):
     return mins[:, None] + scales[:, None] * codes.astype(jnp.float32)
 
 
+def int8_dot(qc: jax.Array, codes: jax.Array) -> jax.Array:
+    """Per-query int8 inner products: qc [B, d] int8 against codes
+    [B, ..., d] int8 -> [B, ...] int32. Operands stay s8 and the sum
+    accumulates in s32, so the result is exact (|sum| <= d * 128 * 127
+    fits int32 for any d below 132k). The IVF sq8 probe and the HNSW
+    serving beam both score their gathered code blocks through it."""
+    return jnp.einsum(
+        "bd,b...d->b...", qc, codes, preferred_element_type=jnp.int32
+    )
+
+
 @partial(jax.jit, static_argnames=("k",))
 def sq8_search(
     queries: jax.Array,   # [B, d] f32
@@ -49,7 +60,7 @@ def sq8_search(
     k: int,
 ):
     """Asymmetric L2² k-NN over the quantized store. The u8·f32 term is
-    one MXU matmul; the code-norm term Σu² is precomputable but cheap
+    one matmul; the code-norm term Σu² is precomputable but cheap
     enough to fuse here. Returns ([B,k] dists asc, [B,k] ids)."""
     q = queries.astype(jnp.float32)
     u = codes.astype(jnp.float32)

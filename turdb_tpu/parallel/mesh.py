@@ -17,8 +17,9 @@ def make_mesh(
     """Build a (data, db) mesh. `db` shards the vector store/graph; `data`
     shards query batches. Defaults to all visible devices on the db axis.
 
-    Axis order puts `data` outermost so db-axis collectives (the top-k
-    all-gather merge) ride contiguous ICI neighbors.
+    Axis order puts `data` outermost. The cards of one node reach each
+    other all to all (NVLink on GPUs), so the mesh follows the algorithm,
+    not a physical topology.
     """
     devices = list(devices if devices is not None else jax.devices())
     if n_db is None:
@@ -36,11 +37,11 @@ def make_multihost_mesh(
     """Build a (host, data, db) mesh for multi-host deployments.
 
     `host` is outermost: with standard device enumeration (all of host 0's
-    chips before host 1's) the host axis crosses DCN while `db` stays on
-    each host's ICI. The sharded indexes detect the axis and run a
-    TWO-LEVEL top-k merge — all_gather over `db` (ICI), reduce to [B, k],
-    then all_gather over `host` so only k results per query cross DCN
-    (SURVEY.md §2.9 "DCN-aware two-level merge").
+    cards before host 1's) the host axis crosses the inter-node network
+    while `db` stays inside each node. The sharded indexes detect the axis
+    and run a TWO-LEVEL top-k merge — all_gather over `db` (intra-node),
+    reduce to [B, k], then all_gather over `host` so only k results per
+    query cross nodes (SURVEY.md §2.9 two-level merge).
     """
     devices = list(devices if devices is not None else jax.devices())
     need = n_host * n_db * n_data

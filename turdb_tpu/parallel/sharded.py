@@ -5,8 +5,8 @@ holds an independent HNSW sub-graph over its partition of the vectors —
 the mesh analog of the reference's lock-sharded single-process scale-out.
 Queries are data-parallel over the `data` axis and replicated over the
 `db` axis; every shard runs local batched beam search, then per-shard
-top-k results are merged with an `all_gather` over ICI (the XLA-collective
-equivalent of the reference's single result heap, src/hnsw/search.rs:193).
+top-k results are merged with an `all_gather` across the cards (the XLA
+collective equivalent of the reference's single result heap, src/hnsw/search.rs:193).
 
 Graph build runs the same `build_wave_impl` on every shard in parallel
 under shard_map — batched parallel insertion per shard (SURVEY.md §2.9
@@ -38,8 +38,9 @@ from turdb_tpu.ops.topk import topk_smallest
 
 def _two_level_merge(d, gi, k: int, multihost: bool):
     """Cross-shard top-k reduction inside shard_map: level 1 merges the
-    db axis over ICI; level 2 (multi-host) merges the per-host [B, k]
-    reductions over DCN — only [B, k] ever crosses the host axis."""
+    db axis inside a node; level 2 (multi-host) merges the per-host
+    [B, k] reductions across nodes — only [B, k] ever crosses the host
+    axis."""
     b = d.shape[0]
     ad = jax.lax.all_gather(d, MESH_AXIS_DB)              # [S, Bl, k]
     ai = jax.lax.all_gather(gi, MESH_AXIS_DB)

@@ -3,10 +3,10 @@
 Same mesh contract as sharded.py's HNSW (SURVEY.md §2.9): each db-axis
 device owns an independent IVF sub-index over its partition of the
 vectors; query batches are data-parallel over the `data` axis and
-replicated over `db`; per-shard top-k merges with an all-gather over ICI.
-This is the BASELINE.json scale config ("100M vectors sharded across
-v5p-8 mesh"): per-chip IVF probes are block-contiguous HBM reads, and the
-only cross-chip traffic is the [S, B, k] result merge.
+replicated over `db`; per-shard top-k merges with an all-gather across the
+cards. This serves indexes larger than one card's memory: per-card IVF
+probes are block-contiguous device-memory reads, and the only cross-card
+traffic is the [S, B, k] result merge.
 """
 
 from __future__ import annotations
@@ -53,8 +53,7 @@ class ShardedIvfIndex:
         self.dim = dim
         self.metric = metric
         # keep_f32=False: per-shard compact stores (int8 probe + SQ16
-        # rerank, 3 bytes/dim) — the BASELINE 100M-mesh config fits in
-        # ~4.8GB/chip on a db=8 mesh instead of ~8GB f32
+        # rerank, 3 bytes/dim instead of 5)
         self.shards = [
             IvfIndex(
                 dim=dim, metric=metric, nprobe=nprobe, sq8=sq8, rerank=rerank,
@@ -92,7 +91,9 @@ class ShardedIvfIndex:
             idxs = splits[rank]
             if len(idxs) == 0:
                 continue
-            slots = self.shards[int(s_idx)].add(vecs[idxs])
+            # stage only: train() then runs the mesh-parallel build
+            # instead of each shard training on the default device
+            slots = self.shards[int(s_idx)].add(vecs[idxs], train=False)
             if self.shards[int(s_idx)].size > self.id_stride:
                 raise ValueError(
                     f"shard {int(s_idx)} exceeds id_stride={self.id_stride}; "
@@ -277,7 +278,7 @@ class ShardedIvfIndex:
             if multihost:
                 shard = shard + jax.lax.axis_index(MESH_AXIS_HOST) * n_db
             gi = jnp.where(i >= 0, shard.astype(jnp.int32) * stride + i, -1)
-            # level 1: merge across the db axis (ICI within a host)
+            # level 1: merge across the db axis (inside a node)
             ad = jax.lax.all_gather(d, MESH_AXIS_DB)
             ai = jax.lax.all_gather(gi, MESH_AXIS_DB)
             ad = jnp.moveaxis(ad, 0, 1).reshape(q.shape[0], -1)
@@ -285,7 +286,7 @@ class ShardedIvfIndex:
             md, mi = topk_smallest(ad, ai, k)
             if not multihost:
                 return md, mi
-            # level 2: only [B, k] crosses DCN (two-level merge)
+            # level 2: only [B, k] crosses nodes (two-level merge)
             hd = jax.lax.all_gather(md, MESH_AXIS_HOST)
             hi = jax.lax.all_gather(mi, MESH_AXIS_HOST)
             hd = jnp.moveaxis(hd, 0, 1).reshape(q.shape[0], -1)

@@ -2,7 +2,7 @@
 
 Counterpart of reference src/hnsw/storage.rs (magic'd 128-byte header with
 graph parameters + entry point + counts, :21-44,100-119) — but where the
-reference persists slotted node pages, the TPU graph IS dense arrays, so
+reference persists slotted node pages, the device graph IS dense arrays, so
 a snapshot is a straight dump of the adjacency/vector/level arrays plus
 the rowid↔slot map. Checkpointing device state with the WAL boundary is
 exactly the "durability of device state" hard part from SURVEY.md §7.
